@@ -8,8 +8,8 @@ the smile/corrGauss targets at D = 2).  This experiment takes the same
 samplers to D = 10,000 on standard and ill-conditioned (diagonal
 variances log-spaced over [1, 1e4]) Gaussians, with the chain batch
 sharded across every available device (``parallel.make_mesh`` +
-``shard_chains`` — the 8-virtual-device CPU mesh here, chips on a real
-TPU slice), and gates on posterior moments within Monte-Carlo error:
+``shard_chains`` — the 8-virtual-device CPU mesh in the tests, the
+cards on a GPU host), and gates on posterior moments within Monte-Carlo error:
 
 * per-coordinate z-scores of the mean of ``q_0`` and ``q_{D-1}``
   (normalised by the target sd) against ESS-based standard errors;
@@ -200,20 +200,17 @@ def main():
     for arm in args.arms.split(","):
         frag = f"/tmp/highdim_{arm}_{args.dim}.json"
         if not os.path.exists(frag):
-            for attempt in (1, 2):
-                r = subprocess.run(
-                    [sys.executable, me, "--arm", arm, "--frag", frag,
-                     "--dim", str(args.dim),
-                     "--chains", str(args.chains),
-                     "--iters", str(args.iters),
-                     "--chunk", str(args.chunk),
-                     "--m", str(args.m)]
-                    + (["--devices", str(args.devices)]
-                       if args.devices else []))
-                if r.returncode == 0:
-                    break
-            else:
-                raise SystemExit(f"arm {arm} failed 2x")
+            r = subprocess.run(
+                [sys.executable, me, "--arm", arm, "--frag", frag,
+                 "--dim", str(args.dim),
+                 "--chains", str(args.chains),
+                 "--iters", str(args.iters),
+                 "--chunk", str(args.chunk),
+                 "--m", str(args.m)]
+                + (["--devices", str(args.devices)]
+                   if args.devices else []))
+            if r.returncode != 0:
+                raise SystemExit(f"arm {arm} failed")
         with open(frag) as f:
             runs[arm] = json.load(f)
         zmax = max(abs(runs[arm][k]) for k in

@@ -11,7 +11,7 @@
 //
 // Used from Python via ctypes (walnuts_tpu/native/__init__.py) as
 //   * the single-core native baseline in bench.py, and
-//   * a fast CPU oracle for statistical cross-checks of the TPU engine.
+//   * a fast CPU oracle for statistical cross-checks of the JAX engines.
 //
 // Build: g++ -O3 -std=c++17 -shared -fPIC -o libwalnuts_native.so \
 //            walnuts_engine.cpp
@@ -193,7 +193,7 @@ bool uturn(const Vec& qm, const Vec& vm, const Vec& qp, const Vec& vp) {
 }
 
 // One WALNUTS transition; whole-orbit storage (oracle mode; the
-// memory-frugal id-slab trick lives in the TPU engine).
+// memory-frugal id-slab trick lives in the JAX engines).
 struct Sampler {
   Target target;
   double h0, delta;

@@ -1,8 +1,8 @@
-"""Float32 validation (the precision the TPU bench runs in).
+"""Float32 validation (the precision the bench runs in).
 
 The global test harness enables x64 (conftest.py) but every engine
 derives its working dtype from ``q0.dtype``, so feeding float32 inputs
-exercises the full f32 path the TPU uses.  SURVEY §7.3 names f32
+exercises the full f32 path the bench uses.  SURVEY §7.3 names f32
 energy accumulation on the funnel (``exp(-omega)`` dynamic range) as a
 hard part — these are the asserting statistical checks round 1 lacked
 (VERDICT "What's weak" #3).

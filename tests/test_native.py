@@ -35,7 +35,7 @@ def test_native_funnel_tail():
 
 
 def test_native_vs_jax_engine_agreement():
-    """The native oracle and the TPU engine sample the same posterior:
+    """The native oracle and the JAX engine sample the same posterior:
     compare funnel omega moments and quantiles."""
     # pool three native chains: single-chain funnel omega has MC error
     # ~0.4 in the mean even at 18k draws (measured), so pool and use

@@ -1,7 +1,7 @@
 """Statistical parity against the reference WALNUTSpy implementation.
 
-Runs the actual reference sampler (mounted read-only at
-``/root/reference``) and our TPU engine on an identical fixed-tuning
+Runs the actual reference sampler (the read-only mount named by
+``REF``) and our JAX engine on an identical fixed-tuning
 configuration, then compares sampler-behaviour distributions: posterior
 moments, orbit-doubling counts, refinement depths, and the col-23
 index-statistic histogram.  This is the "match WALNUTSpy within

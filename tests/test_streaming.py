@@ -79,8 +79,8 @@ def test_streaming_hash_rng_per_chain_reproducible():
     """rng="hash" (default): a chain's draws are a function of its
     global id and its OWN counters only — the first 4 chains of a C=8
     run replay bitwise as a C=4 run (the legacy rng="global" mode
-    cannot do this).  Mirrors test_pallas_megakernel's invariant: one
-    RNG semantics across all fast engines."""
+    cannot do this).  Mirrors the fused engine's invariant
+    (test_megakernel.py): one RNG semantics across the fast engines."""
     t = wt.targets.std_gauss(8)
     cfg = wt.WalnutsConfig(m=5)
     q0 = jax.random.normal(jax.random.PRNGKey(0), (8, 8), jnp.float64)

@@ -3,8 +3,7 @@
 Measures the funnel-101 bench configuration (C=8192, f32, adapted
 tuning) at K in {1, 2, 4, 8} with round-capped streaming invocations,
 printing one JSON line per rung.  Used to pick bench.py's production
-K (VERDICT r2 item 8: close the gap toward the 120M grad/s
-integrator-only ceiling, target > 15M grad/s).
+K; not yet run on the H100.
 
 Usage: python tools/mk_ladder.py [--chains 8192] [--seconds 20]
 """

@@ -1,9 +1,9 @@
 """Megakernel round-cost ablation profile (VERDICT r4 item 3).
 
-The ladder (tools/mk_ladder.py) showed rounds/s is nearly flat in
-micro_unroll K (1327/s at K=1 -> 1197/s at K=8): a gradient eval is
-~1.4% of a round, so the round is ~98% bookkeeping.  This tool
-measures WHERE that bookkeeping cost sits by timing the same
+When rounds/s is nearly flat in micro_unroll K (tools/mk_ladder.py),
+a gradient eval is a small share of a round and the round is mostly
+bookkeeping.  This tool measures WHERE that bookkeeping cost sits by
+timing the same
 warmup-adapted funnel-101 configuration with named cost centres
 ablated (semantics intentionally broken; only rounds/s is read):
 
@@ -23,8 +23,7 @@ complete round bodies inside one fori iteration so XLA can fuse
 across round boundaries (identical algorithm + RNG stream).
 
 Usage: python tools/profile_round.py [--chains 8192] [--seconds 15]
-Writes one JSON line per configuration; redirect to
-tools/profile_round_tpu_r5.json for the committed record.
+Writes one JSON line per configuration.
 """
 
 import argparse

@@ -1,11 +1,11 @@
-"""walnuts_tpu — a TPU-native WALNUTS/NUTS inference engine in JAX.
+"""walnuts_tpu — a batched WALNUTS/NUTS inference engine in JAX.
 
 A from-scratch re-design of the capabilities of bob-carpenter/walnuts
-(the Within-orbit Adaptive step-Length No-U-Turn Sampler) for TPU
-hardware: fixed-shape, masked, chain-batched orbit expansion under
+(the Within-orbit Adaptive step-Length No-U-Turn Sampler) for GPUs:
+fixed-shape, masked, chain-batched orbit expansion under
 ``jit``; adaptive step-size refinement as masked ``lax.while_loop``
 searches; warmup adaptation as scan carries; chains sharded over a
-``jax.sharding.Mesh`` for multi-chip / multi-host scale-out.
+``jax.sharding.Mesh`` for multi-device / multi-host scale-out.
 """
 
 __version__ = "0.1.0"

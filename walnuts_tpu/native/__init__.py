@@ -8,7 +8,7 @@ the source) and exposes:
 
 The native engine serves as (a) the honest single-core baseline for
 ``bench.py``'s ``vs_baseline`` extras, and (b) a fast CPU oracle for
-statistical cross-checks of the TPU engine (the role the external
+statistical cross-checks of the JAX engines (the role the external
 ``walnuts_cpp`` repo plays for the reference).
 """
 

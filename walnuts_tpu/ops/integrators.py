@@ -28,8 +28,8 @@ chain early-exiting a Python search loop, a shared refinement counter
 not yet accepted re-integrates its own macro step at ``2^c`` micro
 steps, with accepted chains masked out.  The loop exits when the
 slowest chain accepts, so a batch pays the *max* refinement depth over
-chains per macro step — the price of dense fixed-shape TPU execution,
-bought back by running thousands of chains per chip.
+chains per macro step — the price of dense fixed-shape execution,
+bought back by running thousands of chains per device.
 """
 
 import math

@@ -1,4 +1,4 @@
-"""Isokinetic (microcanonical) dynamics — batched TPU kernels.
+"""Isokinetic (microcanonical) dynamics — batched over chains.
 
 Re-designs the reference's isokinetic research line
 (``isokinetic/microCanonical.py:16-316``, MATLAB twin

@@ -7,8 +7,8 @@ of leapfrog micro steps (``WALNUTSpy/adaptiveIntegrators.py:78-84``,
 iteration performs **one batched gradient evaluation** for every chain
 that still has micro steps remaining, with per-chain step counts and
 per-chain micro step sizes.  Chains whose counter hit zero ride along
-masked — this is the fixed-shape execution model that keeps the TPU
-dense while chains disagree about how much refinement they need.
+masked — this is the fixed-shape execution model that keeps the device
+busy while chains disagree about how much refinement they need.
 
 Energy bookkeeping is streaming: instead of materialising the
 ``Hams[0..n]`` array the reference builds per macro step

@@ -1,8 +1,8 @@
-"""Multi-chip / multi-host scale-out (the layer the reference never
+"""Multi-device / multi-host scale-out (the layer the reference never
 had — SURVEY.md §2.6: zero distributed code in bob-carpenter/walnuts).
 
 Chains are the data-parallel axis: a ``[C, D]`` batch is sharded over a
-1-D ``('chains',)`` mesh (ICI within a slice, DCN across hosts), and
+1-D ``('chains',)`` mesh (the cards of a host, or several hosts), and
 every per-chain computation in the sampler is embarrassingly parallel,
 so jit + sharded inputs scale without any code changes.  Collectives
 appear only in

@@ -20,9 +20,9 @@ def distributed_init(coordinator: Optional[str] = None,
                      process_id: Optional[int] = None) -> None:
     """Initialise multi-host JAX (no-op on a single host).
 
-    On a real multi-host TPU slice ``jax.distributed.initialize`` picks
-    its arguments up from the TPU environment automatically; arguments
-    are for explicit DCN setups.
+    Nothing tells JAX of a cluster on its own here: give the
+    coordinator's ``host:port``, the number of processes and this
+    process's id explicitly.
     """
     if num_processes is not None and num_processes > 1:
         jax.distributed.initialize(coordinator, num_processes, process_id)

@@ -37,12 +37,12 @@ class WarmupConfig(NamedTuple):
     delta-quantile and the P2 step-size statistic are averaged over
     the whole chain batch each iteration, so every chain shares one
     ``(H, delta)``.  On a chain-sharded mesh the pooling reductions
-    lower to XLA collectives over ICI (SURVEY §5 'distributed
+    lower to XLA collectives between devices (SURVEY §5 'distributed
     communication backend').  Pooled mode converges in far fewer
     warmup iterations (C chains give C samples of the adaptation
     statistics per iteration) and keeps the batch's work profile
-    homogeneous — important on TPU where a batch pays the max orbit
-    depth over chains.
+    homogeneous — important for a batch that pays the max orbit depth
+    over chains.
     """
 
     warmup_iter: int = 1000

@@ -21,7 +21,7 @@ Semantics (matching ``buildOrbit``, ``isokinetic/WALNUTS.py:146-338``):
 * the first integration leg is a single step in a random direction
   with an immediate accept test (``isokinetic/WALNUTS.py:174-215``).
 
-TPU execution model: identical to :mod:`.transition` — the doubling
+Execution model: identical to :mod:`.transition` — the doubling
 loop is flattened into ``build_schedule(M + 1)`` statically scheduled
 steps under one ``lax.while_loop`` (the NUTSampler's ``M`` doublings
 after a depth-0 single step are exactly a ``(M+1)``-depth schedule),

@@ -1,7 +1,7 @@
 """Fixed-orbit-length multinomial sampler with the WASPS stop rule.
 
 Replicates ``isokinetic/samplers.py:59-292`` as a batched fixed-shape
-TPU program:
+program:
 
 * orbit length ``L`` fixed; the forward/backward split is random,
   ``nf ~ U{0..L-1}``, ``nb = L - 1 - nf`` (``samplers.py:135-136``);

@@ -1,11 +1,11 @@
-"""Streaming (continuous-batching) WALNUTS driver — the TPU-native
+"""Streaming (continuous-batching) WALNUTS driver — the batched
 answer to per-chain orbit-depth divergence.
 
 The scan driver (:mod:`.driver`) synchronises the chain batch at every
 transition: all chains wait for the deepest orbit before anyone starts
-the next iteration.  Measured on the funnel benchmark, that leaves the
-chip ~10% utilised (mean orbit depth ~3 vs batch max ~6.3 per
-iteration).
+the next iteration.  On the funnel benchmark the mean orbit depth is
+~3 against a batch max of ~6.3 per iteration, so most of the batch's
+micro steps are masked idle.
 
 Here the transition loop is *flattened across iterations*, LLM-serving
 style: every chain carries its own schedule position ``t`` and
@@ -27,8 +27,8 @@ two documented differences:
 * randomness defaults to ``rng="hash"``: every draw is keyed by
   (seed, global chain id, the chain's own transition + schedule-row
   counters, purpose) with the same splitmix32 counter hash as the
-  megakernel/Pallas engines — one RNG semantics across all fast
-  engines, per-chain reproducible regardless of batch size or
+  fused megakernel — one RNG semantics across the fast engines,
+  per-chain reproducible regardless of batch size or
   composition.  ``rng="global"`` keeps the legacy loop-counter
   threefry keying (a chain's path then depends on the whole batch's
   progress).
@@ -145,7 +145,7 @@ def run_walnuts_streaming(key, q0, h_step, delta, *, target,
         rng: ``"hash"`` (default) keys every draw by (seed, global
             chain id, the chain's OWN transition counter ``it`` and
             schedule row ``t``, purpose) via the same splitmix32
-            counter hash the megakernel/Pallas engines use — a
+            counter hash the fused megakernel uses — a
             chain's stream is reproducible regardless of batch size
             or composition.  ``"global"`` keeps the legacy
             loop-counter threefry keying (a chain's draws then depend
@@ -319,9 +319,8 @@ def run_walnuts_streaming(key, q0, h_step, delta, *, target,
             sel_l=jnp.where(sel, abs_id, st.sel_l),
             idx_time=jnp.where(sel, signed_time, st.idx_time),
             orbit_len=st.orbit_len + jnp.where(olen_mask, hloc, 0.0),
-            # per-chain slot writes as a one-hot masked select — XLA's
-            # general scatter serialises on TPU; this is S elementwise
-            # [C, D] ops instead.  ``store`` statically masks states
+            # per-chain slot writes as a one-hot masked select: S
+            # elementwise [C, D] ops instead of a general scatter.  ``store`` statically masks states
             # that are never read back (only span-start ids, which are
             # odd and == 1 mod 4, feed later merge checks).
             slab_q=jnp.where(

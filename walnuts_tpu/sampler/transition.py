@@ -1,4 +1,4 @@
-"""The WALNUTS Markov transition as a fixed-shape batched TPU program.
+"""The WALNUTS Markov transition as a fixed-shape batched program.
 
 Semantics replicate the reference's instrumented research sampler
 (``WALNUTSpy/WALNUTS.py:111-727``): biased-progressive orbit doubling
@@ -7,7 +7,7 @@ selection with ``LOG_ZERO`` weight guards, per-macro-step step-size
 jitter, stop codes {0, 4, -4, 5, 999}, warmup statistics, and the
 24-column diagnostics contract (``WALNUTS.py:670-693``).
 
-The *execution model* is inverted for TPU:
+The *execution model* is inverted for a batched accelerator:
 
 * One call advances ``C`` chains at once; every array carries a chain
   axis and all control flow is masked.

@@ -7,7 +7,7 @@ a pure-JAX log density.  This removes the reference's only FFI
 boundary — BridgeStan crossed Python->C once per gradient evaluation
 (``mainSW.py:20``) — and replaces the three sequential Stan
 ``for`` recursions (``sw_innov.stan:28-36``) with ``cumsum`` prefix
-sums, which XLA lowers to a log-depth associative scan on TPU.
+sums, which XLA lowers to a parallel prefix scan.
 
 Unconstrained parameter layout (Stan declaration order):
 ``[tSigma, z1, zinn[T-2], x1, xinn[T-1], tau1, tauinn[T-1]]`` —
